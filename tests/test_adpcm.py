@@ -10,19 +10,19 @@ broadband audio its differential coding SNR-beats block-scaled q4 by
 q4-grade (event match ~0.65 vs int16; see the trained-checkpoint test
 below).  It is the narrowest TRUE-WAV wire for loss-tolerant serving;
 mulaw8 stays the parity-grade true-wav wire.  The reference ships raw
-PCM over its link (``pytorch/predict.py:297-339``); this wire exists
-because the tunnel link is the measured serving wall (BENCHMARKS.md).
+PCM (``pytorch/predict.py:297-339``); this wire cuts the host->device
+bytes to a quarter of int16's.
 """
 
 import jax
 import numpy as np
 import pytest
 
-from sed_tpu.config import AUDIO_16K
-from sed_tpu.data import audio_io
-from sed_tpu.models.registry import get_model
-from sed_tpu.ops import wire
-from sed_tpu.serve.engine import SedInferenceEngine
+from sed_jax.config import AUDIO_16K
+from sed_jax.data import audio_io
+from sed_jax.models.registry import get_model
+from sed_jax.ops import wire
+from sed_jax.serve.engine import SedInferenceEngine
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow
@@ -112,7 +112,7 @@ def test_adpcm_native_encoder_bit_exact():
     float input, partial final blocks, and multi-block clips.  The
     numpy path stays as ``adpcm_encode_np`` so the oracle relation is
     testable even where g++ exists."""
-    from sed_tpu.native import adpcm_native
+    from sed_jax.native import adpcm_native
     if not adpcm_native.native_available():
         pytest.skip('g++ unavailable')
     rng = np.random.RandomState(3)
@@ -213,7 +213,7 @@ def test_adpcm_wav_file_roundtrip(tmp_path):
 
 
 def test_dataset_adpcm_wire_encode():
-    from sed_tpu.data.dataset import AudiosetDataset
+    from sed_jax.data.dataset import AudiosetDataset
     ds = AudiosetDataset(wire='adpcm4')
     rng = np.random.RandomState(1)
     w = (rng.uniform(-1, 1, (3, 1280)) * 32767).astype(np.int16)
@@ -234,9 +234,9 @@ def test_adpcm_serving_tracks_f32(engine):
     dec = np.asarray(engine._prep(jnp.asarray(buf)))
     np.testing.assert_array_equal(dec, audio_io.adpcm_decode_np(buf, s))
 
-    _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__))))
-    from bench import make_test_clips
+    _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), 'tools'))
+    from bench_corpus import make_clips as make_test_clips
     clips = make_test_clips(6, AUDIO_16K.sample_rate, seconds=5, seed=9)
     pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
     f16, _ = engine.infer_framewise(pcm)
@@ -257,8 +257,8 @@ def test_adpcm_serving_events_match_int16_trained():
     The bench distribution (white noise floor + tone bursts up to the
     model's class bands) is close to 4-bit ADPCM's worst case — white
     noise defeats differential prediction and near-Nyquist tones hit
-    slope overload (SNR ceiling ~23 dB regardless of block size;
-    block-size A/B recorded in BENCHMARKS.md).  Measured: ~0.65 of
+    slope overload (SNR ceiling ~23 dB regardless of block size).
+    Measured: ~0.65 of
     events match at 0.3 s tolerance vs the int16 wire (q4 ~0.9, q6
     1.0, on natural broadband audio adpcm4 SNR-beats q4 by 3-16 dB) —
     so adpcm4 is the narrowest TRUE-WAV wire for loss-tolerant
@@ -266,10 +266,10 @@ def test_adpcm_serving_events_match_int16_trained():
     parity-grade narrow wire.  This test pins that floor so codec
     regressions are visible."""
     import sys as _sys, os as _os
-    _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__))))
-    from bench import make_test_clips
-    from sed_tpu.utils.npz_ckpt import load_variables_npz
+    _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), 'tools'))
+    from bench_corpus import make_clips as make_test_clips
+    from sed_jax.utils.npz_ckpt import load_variables_npz
 
     ckpt = _os.path.join(_os.path.dirname(_os.path.dirname(
         _os.path.abspath(__file__))), 'tools', 'bench_checkpoint.npz')
@@ -316,8 +316,8 @@ def test_adpcm_associative_decode_matches_scan_decode_fuzz():
     decoder on arbitrary bitstreams — including saturating extremes the
     clamp-composition closure must handle exactly."""
     import jax.numpy as jnp
-    from sed_tpu.data import audio_io
-    from sed_tpu.ops import wire
+    from sed_jax.data import audio_io
+    from sed_jax.ops import wire
 
     rng = np.random.RandomState(7)
     sr, sec = 16000, 5
@@ -407,7 +407,7 @@ def test_adpcm_n_decode_matches_scalar_spec_oracle(bits):
 
 @pytest.mark.parametrize('bits', [3, 2])
 def test_adpcm_n_native_encoder_bit_exact(bits):
-    from sed_tpu.native import adpcm_native
+    from sed_jax.native import adpcm_native
     if not adpcm_native.native_available():
         pytest.skip('g++ unavailable')
     rng = np.random.RandomState(5)

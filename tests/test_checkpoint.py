@@ -1,18 +1,20 @@
-"""Orbax checkpoint save/restore round trip + .pth dispatch."""
+"""npz checkpoint save/restore round trip + lineage + structure check."""
+
+import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sed_tpu.config import AUDIO_16K
-from sed_tpu.models.registry import get_model
+from sed_jax.config import AUDIO_16K
+from sed_jax.models.registry import get_model
 import pytest
 
-from sed_tpu.train.checkpoint import (best_checkpoint_path, load_variables,
+from sed_jax.train.checkpoint import (best_checkpoint_path, load_variables,
                                       restore_checkpoint,
                                       resume_checkpoint_path,
                                       save_best_checkpoint, save_checkpoint)
-from sed_tpu.train.state import create_train_state
+from sed_jax.train.state import create_train_state
 
 
 def test_save_restore_roundtrip(tmp_path):
@@ -23,7 +25,7 @@ def test_save_restore_roundtrip(tmp_path):
     grads = jax.tree.map(jnp.ones_like, state.params)
     state = state.apply_gradients(grads=grads)
 
-    path = str(tmp_path / 'ckpt')
+    path = str(tmp_path / 'ckpt.npz')
     save_checkpoint(path, state)
 
     fresh = create_train_state(model, jax.random.PRNGKey(1), wav)
@@ -36,7 +38,7 @@ def test_save_restore_roundtrip(tmp_path):
                     jax.tree.leaves(state.opt_state)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    # inference-path loader reads the same dir
+    # inference-path loader reads the same file
     variables = load_variables(path)
     assert 'params' in variables and 'batch_stats' in variables
     out = model.apply(variables, wav, train=False)
@@ -60,7 +62,7 @@ def test_step_tagged_lineage_and_resume_at_iteration(tmp_path):
     save_best_checkpoint(ckpt_dir, state)
 
     # BEST marker points at the latest save
-    assert best_checkpoint_path(ckpt_dir).endswith('iter_3')
+    assert best_checkpoint_path(ckpt_dir).endswith('iter_3.npz')
     # exact-iteration resume
     fresh = create_train_state(model, jax.random.PRNGKey(1), wav)
     restored = restore_checkpoint(resume_checkpoint_path(ckpt_dir, 1),
@@ -71,23 +73,19 @@ def test_step_tagged_lineage_and_resume_at_iteration(tmp_path):
     # a never-saved iteration raises, listing what exists
     with pytest.raises(FileNotFoundError, match=r'\[1, 3\]'):
         resume_checkpoint_path(ckpt_dir, 2)
-    # old-style flat checkpoint dirs still resolve (backward compat) —
-    # for serving AND for --resume_iteration
-    flat = str(tmp_path / 'flat')
-    save_checkpoint(flat, state)
-    assert best_checkpoint_path(flat) == flat
-    assert resume_checkpoint_path(flat, 3) == flat
-    restored_flat = restore_checkpoint(resume_checkpoint_path(flat, 3),
-                                       create_train_state(
-                                           model, jax.random.PRNGKey(2),
-                                           wav))
-    assert int(restored_flat.step) == 3
+    # without the marker the highest saved iteration is the best
+    os.remove(os.path.join(ckpt_dir, 'BEST'))
+    assert best_checkpoint_path(ckpt_dir).endswith('iter_3.npz')
+    # a checkpoint of another model fails the structure check
+    other = create_train_state(get_model('Cnn_9layers_FrameAtt', AUDIO_16K),
+                               jax.random.PRNGKey(2), wav)
+    with pytest.raises(ValueError, match='does not match'):
+        restore_checkpoint(resume_checkpoint_path(ckpt_dir, 3), other)
 
 
 def test_resume_rejects_non_checkpoint_directory(tmp_path):
     """A typo'd or junk-filled --resume path must raise the clear
-    FileNotFoundError, not be mistaken for a legacy flat checkpoint
-    (which would fail later with a confusing Orbax error)."""
+    FileNotFoundError listing the saved iterations."""
     junk = tmp_path / 'not_a_checkpoint'
     junk.mkdir()
     (junk / 'notes.txt').write_text('hello')

@@ -9,12 +9,12 @@ import pickle
 import numpy as np
 import pytest
 
-from sed_tpu.config import AUDIO_16K, LABELS
-from sed_tpu.data import audio_io
-from sed_tpu.cli import features as features_cli
-from sed_tpu.cli import main_strong as main_strong_cli
-from sed_tpu.cli import optimize_thresholds as opt_cli
-from sed_tpu.cli import predict as predict_cli
+from sed_jax.config import AUDIO_16K, LABELS
+from sed_jax.data import audio_io
+from sed_jax.cli import features as features_cli
+from sed_jax.cli import main_strong as main_strong_cli
+from sed_jax.cli import optimize_thresholds as opt_cli
+from sed_jax.cli import predict as predict_cli
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow
@@ -114,14 +114,14 @@ def test_02b_resume_at_iteration(dataset_dir, workspace):
         'model_type=Cnn_9layers_FrameAvg', 'loss_type=clip_bce',
         'augmentation=specaugment_timeshift_mixup', 'batch_size=2',
         'best_logmel_16k')
-    assert os.path.isdir(os.path.join(ckpt_dir, 'iter_2'))
+    assert os.path.isfile(os.path.join(ckpt_dir, 'iter_2.npz'))
     main_strong_cli.main(['train', '--dataset_dir', dataset_dir,
                           '--workspace', workspace, *COMMON,
                           '--learning_rate', '1e-3',
                           '--resume_iteration', '2',
                           '--stop_iteration', '5',
                           '--eval_interval', '2'])
-    assert os.path.isdir(os.path.join(ckpt_dir, 'iter_4')), \
+    assert os.path.isfile(os.path.join(ckpt_dir, 'iter_4.npz')), \
         'resumed run did not save a step-tagged best checkpoint'
 
 
@@ -203,9 +203,9 @@ def test_05c_predict_cli_resident_uniform_corpus(dataset_dir, workspace):
 
     # library-level oracle on the same int16 wire (10 s files = one
     # resident clip each at --sample_duration 10)
-    from sed_tpu.cli import common as cli_common
-    from sed_tpu.serve.engine import SedInferenceEngine
-    from sed_tpu.config import AUDIO_16K, PREDICT_SED_PARAMS
+    from sed_jax.cli import common as cli_common
+    from sed_jax.serve.engine import SedInferenceEngine
+    from sed_jax.config import AUDIO_16K, PREDICT_SED_PARAMS
     ns = predict_cli.get_parser().parse_args(
         ['predict', '--input_dir', input_dir, '--workspace', workspace,
          *COMMON, '--sample_duration', '10', '--resident'])
@@ -220,7 +220,7 @@ def test_05c_predict_cli_resident_uniform_corpus(dataset_dir, workspace):
     paths = sorted(os.path.join(input_dir, f)
                    for f in os.listdir(input_dir)
                    if not f.startswith('.'))
-    from sed_tpu.data import audio_io as aio
+    from sed_jax.data import audio_io as aio
     reader = aio.wire_reader_for(paths[0])
     names = [os.path.basename(p) for p in paths]
     _, want_xmls = eng.predict_files_resident(paths, reader, names=names)

@@ -9,10 +9,10 @@ import os
 import numpy as np
 import pytest
 
-from sed_tpu.config import AUDIO_16K, LABELS
-from sed_tpu.data import audio_io
-from sed_tpu.cli import features as features_cli
-from sed_tpu.cli import main_strong as main_strong_cli
+from sed_jax.config import AUDIO_16K, LABELS
+from sed_jax.data import audio_io
+from sed_jax.cli import features as features_cli
+from sed_jax.cli import main_strong as main_strong_cli
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow
@@ -85,7 +85,7 @@ def test_01_pack_gamma_all_splits(dataset_dir, workspace):
     (N, mel_bins, gamma_frames) precomputed gammatonegrams instead of
     waveforms (``utils/features.py:318-322,361-370``)."""
     import h5py
-    from sed_tpu.dsp import gammatone
+    from sed_jax.dsp import gammatone
     for split in ('weak_training', 'strong_training', 'strong_validation',
                   'testing'):
         features_cli.main(['pack_audio_files_to_hdf5',

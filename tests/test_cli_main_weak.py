@@ -1,5 +1,5 @@
 """End-to-end smoke test for the WEAK-ONLY training driver
-(``sed_tpu/cli/main.py``, reference ``pytorch/main.py:30-278``).
+(``sed_jax/cli/main.py``, reference ``pytorch/main.py:30-278``).
 
 This is a distinct code path from ``main_strong`` — its own loss/step
 functions and a single weak stream — so it gets its own CPU drive:
@@ -15,10 +15,10 @@ import pickle
 import numpy as np
 import pytest
 
-from sed_tpu.config import AUDIO_16K, LABELS
-from sed_tpu.data import audio_io
-from sed_tpu.cli import features as features_cli
-from sed_tpu.cli import main as main_cli
+from sed_jax.config import AUDIO_16K, LABELS
+from sed_jax.data import audio_io
+from sed_jax.cli import features as features_cli
+from sed_jax.cli import main as main_cli
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow
@@ -83,12 +83,12 @@ def test_weak_train_e2e_eval_and_best_checkpoint(dataset_dir,
         stats = pickle.load(f)
     assert [s['iteration'] for s in stats['test']] == [2]
     assert np.isfinite(np.nanmean(stats['test'][0]['clipwise_ap']))
-    # best checkpoint saved by clipwise mAP (an Orbax dir at the
-    # reference's best_{feat}_{quality} stem)
+    # best checkpoint saved by clipwise mAP (an iter_N.npz lineage at
+    # the reference's best_{feat}_{quality} stem)
     ckpts = []
     for base, _dirs, fns in os.walk(os.path.join(workspace,
                                                  'checkpoints')):
-        if '_CHECKPOINT_METADATA' in fns:
+        if 'BEST' in fns and any(f.endswith('.npz') for f in fns):
             ckpts.append(base)
     assert ckpts and any('best_logmel_16k' in c for c in ckpts), ckpts
     # submission csv written by the evaluator

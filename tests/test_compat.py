@@ -13,11 +13,11 @@ torch = pytest.importorskip('torch')
 
 import jax.numpy as jnp  # noqa: E402
 
-from sed_tpu.config import AUDIO_16K  # noqa: E402
-from sed_tpu.compat.torch_loader import (  # noqa: E402
+from sed_jax.config import AUDIO_16K  # noqa: E402
+from sed_jax.compat.torch_loader import (  # noqa: E402
     read_torch_pickle, load_checkpoint_variables)
-from sed_tpu.dsp.frontend import LogmelFrontend  # noqa: E402
-from sed_tpu.models.registry import get_model  # noqa: E402
+from sed_jax.dsp.frontend import LogmelFrontend  # noqa: E402
+from sed_jax.models.registry import get_model  # noqa: E402
 
 
 class _TorchConvBlock(torch.nn.Module):

@@ -23,10 +23,10 @@ torch = pytest.importorskip('torch')
 
 import jax.numpy as jnp  # noqa: E402
 
-from sed_tpu.config import AUDIO_16K  # noqa: E402
-from sed_tpu.compat.torch_loader import load_checkpoint_variables  # noqa: E402
-from sed_tpu.dsp.frontend import LogmelFrontend  # noqa: E402
-from sed_tpu.models.registry import get_model  # noqa: E402
+from sed_jax.config import AUDIO_16K  # noqa: E402
+from sed_jax.compat.torch_loader import load_checkpoint_variables  # noqa: E402
+from sed_jax.dsp.frontend import LogmelFrontend  # noqa: E402
+from sed_jax.models.registry import get_model  # noqa: E402
 
 from test_compat import (_TorchAttBlock, _TorchConvBlock,  # noqa: E402
                           _randomize_bn_stats)
@@ -533,7 +533,7 @@ def test_conv2d_subsampling_flatten_order_matches_torch():
     like torch's transpose(1,2).view(b,t,c*f), so reference Dense
     weights transfer with a plain transpose."""
     import jax
-    from sed_tpu.models.encoders import Conv2dSubsampling
+    from sed_jax.models.encoders import Conv2dSubsampling
 
     torch.manual_seed(11)
     oracle = _TorchConv2dSubsampling().eval()

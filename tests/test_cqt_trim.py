@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sed_tpu.config import AUDIO_16K
-from sed_tpu.data.audio_io import trim_silent
-from sed_tpu.dsp.cqt import CQTFrontend, cqt_filterbank, cqt_frequencies
+from sed_jax.config import AUDIO_16K
+from sed_jax.data.audio_io import trim_silent
+from sed_jax.dsp.cqt import CQTFrontend, cqt_filterbank, cqt_frequencies
 
 
 def test_cqt_frequencies_log_spaced():

@@ -6,12 +6,12 @@ import h5py
 import numpy as np
 import pytest
 
-from sed_tpu.config import AUDIO_16K, CLASSES_NUM, LABELS
-from sed_tpu.data import audio_io, metadata
-from sed_tpu.data.dataset import (AudiosetDataset, DataLoader, TestSampler,
+from sed_jax.config import AUDIO_16K, CLASSES_NUM, LABELS
+from sed_jax.data import audio_io, metadata
+from sed_jax.data.dataset import (AudiosetDataset, DataLoader, TestSampler,
                                   TrainSampler, collate_fn, cycle_iteration,
                                   shard_for_host)
-from sed_tpu.data.hdf5_pack import (float32_to_int16, int16_to_float32,
+from sed_jax.data.hdf5_pack import (float32_to_int16, int16_to_float32,
                                     hdf5_filename, pack_audio_files_to_hdf5)
 
 
@@ -228,7 +228,7 @@ def test_fast_wav_reader_noncanonical_chunk_layouts(tmp_path):
     int(None)."""
     import struct
     import pytest as _pytest
-    from sed_tpu.data import audio_io
+    from sed_jax.data import audio_io
     pcm = (np.arange(16) * 100).astype(np.int16)
     data = pcm.tobytes()
     fmt = struct.pack('<HHIIHH', 1, 1, 8000, 16000, 2, 16)
@@ -276,11 +276,11 @@ def test_train_step_accepts_int16_waveforms():
     identical to pre-converted float batches."""
     import jax
     import jax.numpy as jnp
-    from sed_tpu import losses
-    from sed_tpu.models.registry import get_model
-    from sed_tpu.train.state import create_train_state
-    from sed_tpu.train.step import make_train_step
-    from sed_tpu.data.hdf5_pack import int16_to_float32
+    from sed_jax import losses
+    from sed_jax.models.registry import get_model
+    from sed_jax.train.state import create_train_state
+    from sed_jax.train.step import make_train_step
+    from sed_jax.data.hdf5_pack import int16_to_float32
 
     cfg = AUDIO_16K
     model = get_model('Cnn_9layers_FrameAvg', cfg)
@@ -310,7 +310,7 @@ def test_get_batch_hyperslab_matches_per_item(tmp_path):
     to the per-item path, including duplicate indices (a mid-batch
     TrainSampler reshuffle can repeat one) and unsorted order."""
     import h5py
-    from sed_tpu.data.dataset import (AudiosetDataset, DataLoader,
+    from sed_jax.data.dataset import (AudiosetDataset, DataLoader,
                                       TestSampler, collate_fn)
     path = str(tmp_path / 'weak_training_logmel_16k.h5')
     rng = np.random.RandomState(0)
@@ -342,8 +342,8 @@ def test_get_batch_hyperslab_matches_per_item(tmp_path):
 
 def test_stack_rows_matches_np_stack():
     """audio_io.stack_rows is the hot-path replacement for np.stack
-    (NumPy's multi-array path degrades past ~tens of MB on the bench
-    host, BENCHMARKS.md) — must be value- and dtype-identical."""
+    (it avoids the intermediate copies of NumPy's multi-array path) —
+    must be value- and dtype-identical."""
     rng = np.random.RandomState(0)
     for dtype in (np.int16, np.uint8, np.float32):
         rows = [rng.randint(0, 100, 37).astype(dtype) for _ in range(5)]

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from sed_tpu.parallel.distributed import HostShardedSampler, \
+from sed_jax.parallel.distributed import HostShardedSampler, \
     maybe_initialize
 
 
 def test_maybe_initialize_noop_without_env(monkeypatch):
     for var in ('JAX_COORDINATOR_ADDRESS', 'JAX_NUM_PROCESSES',
-                'JAX_PROCESS_ID', 'SED_TPU_MULTIHOST'):
+                'JAX_PROCESS_ID', 'SED_JAX_MULTIHOST'):
         monkeypatch.delenv(var, raising=False)
     assert maybe_initialize() is False
 
@@ -19,7 +19,7 @@ def test_maybe_initialize_rejects_partial_env(monkeypatch):
     import pytest
     for var in ('JAX_COORDINATOR_ADDRESS', 'JAX_NUM_PROCESSES',
                 'JAX_PROCESS_ID', 'JAX_PROCESS_COUNT', 'JAX_PROCESS_INDEX',
-                'SED_TPU_MULTIHOST'):
+                'SED_JAX_MULTIHOST'):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv('JAX_COORDINATOR_ADDRESS', 'host0:8476')
     monkeypatch.setenv('JAX_NUM_PROCESSES', '2')
@@ -29,13 +29,13 @@ def test_maybe_initialize_rejects_partial_env(monkeypatch):
 
 def test_explicit_wiring_beats_multihost_autodetect(monkeypatch):
     """A pod launcher that exports BOTH the explicit coordinator wiring
-    and SED_TPU_MULTIHOST=1 must get the operator's explicit wiring, not
+    and SED_JAX_MULTIHOST=1 must get the operator's explicit wiring, not
     auto-detection."""
     for var in ('JAX_COORDINATOR_ADDRESS', 'JAX_NUM_PROCESSES',
                 'JAX_PROCESS_ID', 'JAX_PROCESS_COUNT', 'JAX_PROCESS_INDEX',
-                'SED_TPU_MULTIHOST'):
+                'SED_JAX_MULTIHOST'):
         monkeypatch.delenv(var, raising=False)
-    monkeypatch.setenv('SED_TPU_MULTIHOST', '1')
+    monkeypatch.setenv('SED_JAX_MULTIHOST', '1')
     monkeypatch.setenv('JAX_COORDINATOR_ADDRESS', 'host0:8476')
     monkeypatch.setenv('JAX_NUM_PROCESSES', '2')
     monkeypatch.setenv('JAX_PROCESS_ID', '1')
@@ -55,7 +55,7 @@ def test_partial_env_error_names_the_aliases_set(monkeypatch):
     import pytest
     for var in ('JAX_COORDINATOR_ADDRESS', 'JAX_NUM_PROCESSES',
                 'JAX_PROCESS_ID', 'JAX_PROCESS_COUNT', 'JAX_PROCESS_INDEX',
-                'SED_TPU_MULTIHOST'):
+                'SED_JAX_MULTIHOST'):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv('JAX_PROCESS_COUNT', '4')
     with pytest.raises(RuntimeError) as exc:
@@ -87,7 +87,7 @@ def test_loader_over_host_sharded_sampler(tmp_path):
     """End-to-end: the local loader stream equals the matching slice of
     the global stream for every simulated host."""
     import h5py
-    from sed_tpu.data.dataset import (AudiosetDataset, DataLoader,
+    from sed_jax.data.dataset import (AudiosetDataset, DataLoader,
                                       TrainSampler)
     path = str(tmp_path / 'weak_training_logmel_16k.h5')
     rng = np.random.RandomState(0)

@@ -1,5 +1,5 @@
 """Offline test for the AudioSet downloader
-(``sed_tpu/data/download.py``, reference ``download_audioset.py:1-50``):
+(``sed_jax/data/download.py``, reference ``download_audioset.py:1-50``):
 stubbed yt-dlp/ffmpeg pin the command plumbing — URL resolution, the
 ffmpeg crop args (-ss/-t/-ar/-ac), skip-existing, and the
 one-bad-clip-must-not-abort policy — without network."""
@@ -9,7 +9,7 @@ import types
 
 import numpy as np
 
-from sed_tpu.data import download
+from sed_jax.data import download
 
 
 def test_download_audioset_stubbed(tmp_path, monkeypatch):

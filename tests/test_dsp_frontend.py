@@ -12,8 +12,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sed_tpu.config import AUDIO_8K, AUDIO_16K, AUDIO_32K
-from sed_tpu.dsp import filters, frontend
+from sed_jax.config import AUDIO_8K, AUDIO_16K, AUDIO_32K
+from sed_jax.dsp import filters, frontend
 
 
 def gold_stft(x: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
@@ -166,7 +166,7 @@ def _librosa_mel_oracle(sr, n_fft, n_mels, fmin, fmax, htk=False,
     reference embeds at ``pytorch/stft.py:688-692``).  Kept verbatim in
     structure — np.fft.rfftfreq bins, subtract.outer ramps, Slaney area
     norm — so the repo's from-first-principles construction
-    (``sed_tpu/dsp/filters.py``) is pinned to librosa's exact values, not
+    (``sed_jax/dsp/filters.py``) is pinned to librosa's exact values, not
     just to the same paper."""
     if fmax is None:
         fmax = float(sr) / 2
@@ -255,3 +255,25 @@ def test_mel_filterbank_matches_librosa_oracle():
         ours = filters.mel_filterbank(22050, 2048, 128, 0.0, None, **kw)
         gold = _librosa_mel_oracle(22050, 2048, 128, 0.0, None, **kw).T
         np.testing.assert_allclose(ours, gold, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize('cfg', [AUDIO_8K, AUDIO_16K, AUDIO_32K],
+                         ids=['8k', '16k', '32k'])
+def test_model_logmel_matches_float64_reference(cfg):
+    """The models' frontend (``frontend.logmel``) against the float64
+    reference on loud, quiet and near-silent clips; the reference itself
+    against the independent rfft gold."""
+    rng = np.random.RandomState(2)
+    levels = np.array([[1.0], [0.05], [1e-3]])
+    x = (rng.uniform(-0.5, 0.5, (3, cfg.sample_rate + 37)) * levels
+         ).astype(np.float32)
+    mel, ref_db = frontend.logmel_reference(x, cfg)
+    got = np.asarray(frontend.logmel(jnp.asarray(x), cfg))
+    frames = (cfg.sample_rate + 37) // cfg.hop_size + 1
+    assert got.shape == ref_db.shape == (3, frames, cfg.mel_bins)
+    # float32 loses a few hundredths of a dB on the quietest bins only
+    err = np.abs(got - ref_db)[mel > cfg.amin]
+    assert err.max() < 0.25
+    assert np.percentile(err, 99) < 0.01
+    np.testing.assert_allclose(
+        ref_db[0], gold_logmel(x[0].astype(np.float64), cfg), atol=1e-6)

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sed_tpu.config import AUDIO_8K, AUDIO_16K, AUDIO_32K
-from sed_tpu.dsp import gammatone as gt
+from sed_jax.config import AUDIO_8K, AUDIO_16K, AUDIO_32K
+from sed_jax.dsp import gammatone as gt
 
 
 def test_erb_space_endpoints():
@@ -87,7 +87,7 @@ def test_time_domain_gtgram_runs():
 
 def test_gamma_model_forward():
     import jax
-    from sed_tpu.models.registry import get_model
+    from sed_jax.models.registry import get_model
     model = get_model('Cnn_9layers_Gru_FrameAtt', AUDIO_16K,
                       feature_type='gamma')
     feat = jnp.zeros((2, 64, 994), jnp.float32)
@@ -105,8 +105,8 @@ def test_plot_cli_renders_gammatonegram_png(tmp_path):
     the full filterbank."""
     import matplotlib
     matplotlib.use('Agg')
-    from sed_tpu.data import audio_io
-    from sed_tpu.dsp import plot as plot_cli
+    from sed_jax.data import audio_io
+    from sed_jax.dsp import plot as plot_cli
 
     sr = 16000
     t = np.arange(sr * 2) / sr

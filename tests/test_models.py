@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sed_tpu.config import AUDIO_16K, CLASSES_NUM
-from sed_tpu.models import blocks
-from sed_tpu.models.registry import get_model, MODEL_REGISTRY
+from sed_jax.config import AUDIO_16K, CLASSES_NUM
+from sed_jax.models import blocks
+from sed_jax.models.registry import get_model, MODEL_REGISTRY
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow
@@ -200,28 +200,6 @@ def test_interpolate_and_pad_helpers():
     assert blocks.roundup(496) == 500 and blocks.roundup(1000) == 1000
 
 
-def test_pallas_frontend_flag_matches_xla_path():
-    """frontend_impl='pallas' routes features through the fused kernel
-    (interpret mode on CPU) with outputs matching the XLA path."""
-    import jax
-    import numpy as np
-    from sed_tpu.config import AUDIO_16K
-    from sed_tpu.models.registry import get_model
-
-    cfg = AUDIO_16K
-    rng = np.random.RandomState(0)
-    wav = rng.uniform(-0.5, 0.5, (2, cfg.sample_rate)).astype(np.float32)
-    m_x = get_model('Cnn_9layers_FrameAvg', cfg)
-    m_p = get_model('Cnn_9layers_FrameAvg', cfg, frontend_impl='pallas')
-    variables = m_x.init({'params': jax.random.PRNGKey(0)}, wav,
-                         train=False)
-    out_x = m_x.apply(variables, wav, train=False)
-    out_p = m_p.apply(variables, wav, train=False)
-    np.testing.assert_allclose(np.asarray(out_p['framewise_output']),
-                               np.asarray(out_x['framewise_output']),
-                               rtol=1e-4, atol=1e-4)
-
-
 def test_parameter_counts_vs_thesis_table():
     """Pin trainable-parameter totals against the thesis table
     (``Results_and_Discussion.tex:109``: 5,894,692 / 5,763,620 /
@@ -243,8 +221,8 @@ def test_parameter_counts_vs_thesis_table():
     pinned separately (test_reference_model_oracle.py), which is what
     proves these omitted modules are dead code."""
     import jax
-    from sed_tpu.config import AUDIO_16K
-    from sed_tpu.models.registry import get_model
+    from sed_jax.config import AUDIO_16K
+    from sed_jax.models.registry import get_model
 
     expect = {
         # ours = thesis - (dead modules)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sed_tpu.native.vad_native import native_available, decode_packed_tracks
-from sed_tpu.post import vad
+from sed_jax.native.vad_native import native_available, decode_packed_tracks
+from sed_jax.post import vad
 
 pytestmark = [pytest.mark.slow,
               pytest.mark.skipif(not native_available(),

@@ -8,9 +8,9 @@ import numpy as np
 import jax
 import pytest
 
-from sed_tpu.config import AUDIO_16K
-from sed_tpu.data import audio_io
-from sed_tpu.cli import predict as predict_cli
+from sed_jax.config import AUDIO_16K
+from sed_jax.data import audio_io
+from sed_jax.cli import predict as predict_cli
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow
@@ -93,7 +93,7 @@ def test_predict_asr_segment_crop_and_text_attrs(tmp_path, monkeypatch):
     fake.RequestError = type('RequestError', (Exception,), {})
     monkeypatch.setitem(sys.modules, 'speech_recognition', fake)
 
-    from sed_tpu.config import SPEECH_LABELS
+    from sed_jax.config import SPEECH_LABELS
 
     class _StubEngine:
         def predict_file(self, path):

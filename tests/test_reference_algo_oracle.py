@@ -69,7 +69,7 @@ def ref_pkg():
 # ---------------------------------------------------------------------------
 
 def test_mixup_lambda_stream_vs_actual_reference(ref_pkg):
-    from sed_tpu.augment.functional import MixupGenerator
+    from sed_jax.augment.functional import MixupGenerator
     for alpha, seed in ((1.0, 1234), (0.5, 7), (2.0, 99)):
         ref = ref_pkg['utilities'].Mixup(alpha, random_seed=seed)
         ours = MixupGenerator(alpha, random_seed=seed)
@@ -79,7 +79,7 @@ def test_mixup_lambda_stream_vs_actual_reference(ref_pkg):
 
 
 def test_pad_truncate_sequence_vs_actual_reference(ref_pkg):
-    from sed_tpu.data.audio_io import pad_truncate
+    from sed_jax.data.audio_io import pad_truncate
     rng = np.random.RandomState(0)
     for n, m in ((100, 160), (160, 160), (200, 160)):
         x = rng.randn(n).astype(np.float32)
@@ -93,7 +93,7 @@ def test_pad_truncate_sequence_vs_actual_reference(ref_pkg):
 # ---------------------------------------------------------------------------
 
 def test_losses_vs_actual_reference(ref_pkg):
-    from sed_tpu import losses as our_losses
+    from sed_jax import losses as our_losses
     rng = np.random.RandomState(1)
     B, T, Tt, C = 4, 200, 190, 25
     clip_p = rng.uniform(0.01, 0.99, (B, C)).astype(np.float32)
@@ -128,7 +128,7 @@ def test_losses_vs_actual_reference(ref_pkg):
 # ---------------------------------------------------------------------------
 
 def test_sed_average_precision_vs_actual_reference(ref_pkg):
-    from sed_tpu.eval.ap import sed_average_precision
+    from sed_jax.eval.ap import sed_average_precision
     rng = np.random.RandomState(2)
     strong = (rng.rand(6, 100, 25) < 0.2).astype(np.float32)
     # every class present at least once so 'macro' is defined
@@ -142,7 +142,7 @@ def test_sed_average_precision_vs_actual_reference(ref_pkg):
 
 
 def test_precision_recall_f1_vs_actual_reference(ref_pkg):
-    from sed_tpu.eval.calculate_metrics import calculate_precision_recall_f1
+    from sed_jax.eval.calculate_metrics import calculate_precision_recall_f1
     rng = np.random.RandomState(3)
     y = (rng.rand(50, 25) < 0.3).astype(np.float32)
     out = rng.rand(50, 25).astype(np.float32)
@@ -161,7 +161,7 @@ def test_precision_recall_f1_vs_actual_reference(ref_pkg):
 
 
 def test_get_metric_vs_actual_reference(ref_pkg):
-    from sed_tpu.eval.calculate_metrics import get_metric
+    from sed_jax.eval.calculate_metrics import get_metric
     results = {'overall': {
         'f_measure': {'f_measure': 0.61, 'precision': 0.7, 'recall': 0.55},
         'error_rate': {'error_rate': 0.58}}}
@@ -175,8 +175,8 @@ def test_get_metric_vs_actual_reference(ref_pkg):
 # ---------------------------------------------------------------------------
 
 def test_weak_csv_and_targets_vs_actual_reference(ref_pkg, tmp_path):
-    from sed_tpu.config import LB_TO_IDX
-    from sed_tpu.data import metadata
+    from sed_jax.config import LB_TO_IDX
+    from sed_jax.data import metadata
     f = ref_pkg['features']
 
     weak = tmp_path / 'weak.csv'
@@ -231,7 +231,7 @@ def test_threshold_optimizer_trajectory_vs_actual_reference(ref_pkg):
     score with plateaus (quantized quadratic — exercises the max_search
     re-probing), pinning the 'algorithm-exact' claim against the ACTUAL
     reference optimizer, not a transcription of it."""
-    from sed_tpu.thresholds.optimizer import HyperParamsOptimizer
+    from sed_jax.thresholds.optimizer import HyperParamsOptimizer
 
     target = np.array([0.31, 0.55, 0.12, 0.78])
 
@@ -275,7 +275,7 @@ def ref_pu(ref_pkg):
 
 
 def test_do_mixup_vs_actual_reference(ref_pu):
-    from sed_tpu.augment.functional import do_mixup
+    from sed_jax.augment.functional import do_mixup
     rng = np.random.RandomState(5)
     x = rng.randn(4, 1, 50, 8).astype(np.float32)
     lam = rng.rand(4).astype(np.float32)
@@ -291,7 +291,7 @@ def test_do_timeshift_vs_actual_reference(ref_pu, monkeypatch):
     (trunc-toward-zero + roll along dim 2 + mixup) by forcing the
     reference's normal draw to the jax key's value."""
     import jax
-    from sed_tpu.augment import functional as F
+    from sed_jax.augment import functional as F
     rng = np.random.RandomState(6)
     x = rng.randn(4, 1, 50, 8).astype(np.float32)
     lam = rng.rand(4).astype(np.float32)
@@ -317,7 +317,7 @@ def test_do_timeshift_vs_actual_reference(ref_pu, monkeypatch):
 
 def test_test_sampler_and_collate_vs_actual_reference(ref_pkg, tmp_path):
     import h5py
-    from sed_tpu.data.dataset import TestSampler, collate_fn
+    from sed_jax.data.dataset import TestSampler, collate_fn
     sys.path.insert(0, os.path.join(REF, 'utils'))
     try:
         import data_generator as ref_dg
@@ -352,7 +352,7 @@ def test_test_sampler_and_collate_vs_actual_reference(ref_pkg, tmp_path):
 
 def test_dataset_item_vs_actual_reference(ref_pkg, tmp_path):
     import h5py
-    from sed_tpu.data.dataset import AudiosetDataset
+    from sed_jax.data.dataset import AudiosetDataset
     sys.path.insert(0, os.path.join(REF, 'utils'))
     try:
         import data_generator as ref_dg
@@ -391,20 +391,20 @@ def test_int16_converters_vs_actual_reference(ref_pkg):
     exactly; NB ``audio_io._to_float32`` is deliberately NOT that
     function — it is the wav-LOAD normalization (/ 32768, librosa
     convention)."""
-    from sed_tpu.ops.wire import dequant_wire
+    from sed_jax.ops.wire import dequant_wire
     util = ref_pkg['utilities']
     rng = np.random.RandomState(9)
     ints = rng.randint(-32768, 32767, (2, 1000)).astype(np.int16)
     got = np.asarray(dequant_wire(jnp.asarray(ints)))
     np.testing.assert_array_equal(got, util.int16_to_float32(ints))
     floats = rng.uniform(-1, 1, 1000).astype(np.float32)
-    from sed_tpu.data.hdf5_pack import float32_to_int16
+    from sed_jax.data.hdf5_pack import float32_to_int16
     np.testing.assert_array_equal(float32_to_int16(floats),
                                   util.float32_to_int16(floats))
 
 
 def test_write_submission_vs_actual_reference(ref_pkg, tmp_path):
-    from sed_tpu.post.events import write_submission
+    from sed_jax.post.events import write_submission
     events = [
         {'filename': 'a.wav', 'onset': 1.37, 'offset': 2.0,
          'event_label': 'Siren'},
@@ -425,7 +425,7 @@ def test_write_submission_vs_actual_reference(ref_pkg, tmp_path):
 
 def test_statistics_container_vs_actual_reference(ref_pkg, tmp_path):
     import pickle
-    from sed_tpu.utils.statistics import StatisticsContainer
+    from sed_jax.utils.statistics import StatisticsContainer
 
     def fill(c):
         c.append('train', 0, {'loss': 1.0})
@@ -464,7 +464,7 @@ def test_statistics_container_vs_actual_reference(ref_pkg, tmp_path):
 
 def test_shipped_pickles_through_both_event_pipelines(ref_pkg):
     import pickle
-    from sed_tpu.post import events
+    from sed_jax.post import events
     base = os.path.join(
         REF, 'opt_thresholds/main_strong/holdout_fold=1')
     paths = [
@@ -511,5 +511,5 @@ def test_reference_weak_main_is_bitrotted(ref_pkg):
         sys.path.pop(0)
         sys.path.pop(0)
     # ours imports and exposes the train/inference surface
-    from sed_tpu.cli import main as our_main
+    from sed_jax.cli import main as our_main
     assert callable(our_main.main)

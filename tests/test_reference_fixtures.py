@@ -8,8 +8,8 @@ import pickle
 import numpy as np
 import pytest
 
-from sed_tpu.config import CLASSES_NUM, SedParams
-from sed_tpu.post.events import decode_batch
+from sed_jax.config import CLASSES_NUM, SedParams
+from sed_jax.post.events import decode_batch
 
 REF = '/root/reference'
 PKL = os.path.join(

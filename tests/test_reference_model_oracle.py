@@ -7,7 +7,7 @@ it imports the real ``/root/reference/pytorch/models.py`` (torch CPU,
 with a functional ``librosa`` stub whose ``filters.mel`` is the vendored
 value oracle from ``test_dsp_frontend``), instantiates the shipped model
 classes, saves a genuine reference checkpoint with ``torch.save``, loads
-it through ``sed_tpu.compat.torch_loader``, and compares FULL forward
+it through ``sed_jax.compat.torch_loader``, and compares FULL forward
 outputs — raw waveform in, framewise/clipwise out — so the reference's
 own conv-based STFT/logmel frontend (``pytorch/stft.py:157-247,673-734``)
 is part of the comparison, not substituted by ours.
@@ -30,9 +30,9 @@ torch = pytest.importorskip('torch')
 
 import jax.numpy as jnp  # noqa: E402
 
-from sed_tpu.config import AUDIO_16K  # noqa: E402
-from sed_tpu.compat.torch_loader import load_checkpoint_variables  # noqa: E402
-from sed_tpu.models.registry import get_model  # noqa: E402
+from sed_jax.config import AUDIO_16K  # noqa: E402
+from sed_jax.compat.torch_loader import load_checkpoint_variables  # noqa: E402
+from sed_jax.models.registry import get_model  # noqa: E402
 
 from test_compat import _randomize_bn_stats  # noqa: E402
 from test_dsp_frontend import _librosa_mel_oracle  # noqa: E402
@@ -392,7 +392,7 @@ def test_dft_vs_actual_reference(ref_stft):
     (b) the norm='ortho' inverse branches reference an undefined bare
     ``n`` (stft.py:96-97,151) and raise NameError on every call —
     dead code upstream."""
-    from sed_tpu.dsp import transforms
+    from sed_jax.dsp import transforms
     rng = np.random.RandomState(40)
     n = 64
     xr = rng.randn(n).astype(np.float32)
@@ -448,8 +448,8 @@ def test_dft_vs_actual_reference(ref_stft):
 def test_stft_istft_vs_actual_reference(ref_stft):
     """STFT (stft.py:157-247) and ISTFT (stft.py:269-633) vs the MXU
     matmul stft and the overlap-add istft, plus round-trip fidelity."""
-    from sed_tpu.dsp import filters as our_filters
-    from sed_tpu.dsp import frontend, transforms
+    from sed_jax.dsp import filters as our_filters
+    from sed_jax.dsp import frontend, transforms
     rng = np.random.RandomState(41)
     n_fft, hop, length = 512, 160, 16000
     x = rng.uniform(-0.5, 0.5, (2, length)).astype(np.float32)
@@ -476,7 +476,7 @@ def test_stft_istft_vs_actual_reference(ref_stft):
 
 
 def test_enframe_and_magphase_vs_actual_reference(ref_stft):
-    from sed_tpu.dsp import transforms
+    from sed_jax.dsp import transforms
     rng = np.random.RandomState(42)
     x = rng.uniform(-0.5, 0.5, (2, 8000)).astype(np.float32)
     ref = ref_stft.Enframe(frame_length=1024, hop_length=320)

@@ -7,9 +7,9 @@ reproducible.  Skipped entirely when the checkout is absent.
 
 Oracles exercised:
   * ``utils/vad.py`` — the dual-threshold event decoder (the spec for
-    ``sed_tpu/post/vad.py``).
+    ``sed_jax/post/vad.py``).
   * ``utils/gammatone`` — the vendored Heeris gammatone toolkit (the spec
-    for ``sed_tpu/dsp/gammatone.py``).
+    for ``sed_jax/dsp/gammatone.py``).
 """
 
 import importlib.util
@@ -53,7 +53,7 @@ def test_activity_detection_head_to_head(ref_vad):
     """600 randomized tracks through both decoders; outputs must be
     byte-identical wherever the reference itself doesn't crash (it raises
     IndexError on some inputs — the rebuild handles those)."""
-    from sed_tpu.post.vad import activity_detection
+    from sed_jax.post.vad import activity_detection
 
     rng = np.random.RandomState(0)
     n_ref_crashes = 0
@@ -89,7 +89,7 @@ def test_activity_detection_head_to_head(ref_vad):
 
 def test_activity_detection_binary_head_to_head(ref_vad):
     """Vote-count decoder (``utils/vad.py:47-106``) head-to-head."""
-    from sed_tpu.post.vad import activity_detection_binary
+    from sed_jax.post.vad import activity_detection_binary
 
     rng = np.random.RandomState(1)
     n_compared = 0
@@ -121,7 +121,7 @@ def test_activity_detection_binary_head_to_head(ref_vad):
 # ---------------------------------------------------------------------------
 
 def test_erb_filter_design_head_to_head(ref_gt):
-    from sed_tpu.dsp import gammatone as gt
+    from sed_jax.dsp import gammatone as gt
     filters, _, _ = ref_gt
 
     for fs, n, cutoff in [(16000, 64, 50), (32000, 64, 50), (8000, 31, 20)]:
@@ -134,7 +134,7 @@ def test_erb_filter_design_head_to_head(ref_gt):
 
 
 def test_erb_filterbank_and_gtgram_head_to_head(ref_gt):
-    from sed_tpu.dsp import gammatone as gt
+    from sed_jax.dsp import gammatone as gt
     filters, gtgram_mod, _ = ref_gt
 
     rng = np.random.RandomState(2)
@@ -152,7 +152,7 @@ def test_erb_filterbank_and_gtgram_head_to_head(ref_gt):
 
 
 def test_fft_weights_and_fft_gtgram_head_to_head(ref_gt):
-    from sed_tpu.dsp import gammatone as gt
+    from sed_jax.dsp import gammatone as gt
     _, _, fftweight = ref_gt
 
     nfft, fs, nfilts = 1024, 16000, 64
@@ -182,7 +182,7 @@ def test_train_sampler_stream_head_to_head(tmp_path):
     matplotlib) are stubbed."""
     import types
     import h5py
-    from sed_tpu.data.dataset import TrainSampler
+    from sed_jax.data.dataset import TrainSampler
 
     stubs = {}
     if 'utilities' not in sys.modules:
@@ -303,10 +303,10 @@ def _random_params(rng, c):
 def test_frame_prediction_to_event_prediction_head_to_head(ref_utilities):
     """>=200 randomized output_dicts through the ACTUAL reference
     ``frame_prediction_to_event_prediction`` (``utilities.py:82-153``) and
-    ``sed_tpu.post.events`` — event lists must be exactly equal
+    ``sed_jax.post.events`` — event lists must be exactly equal
     (filenames, labels, float onsets/offsets, order)."""
-    import sed_tpu.post.events as events
-    from sed_tpu.config import LABELS
+    import sed_jax.post.events as events
+    from sed_jax.config import LABELS
 
     rng = np.random.RandomState(100)
     c = len(LABELS)
@@ -337,8 +337,8 @@ def test_frame_prediction_to_event_prediction_head_to_head(ref_utilities):
 def test_frame_prediction_to_event_prediction_v2_head_to_head(
         ref_utilities):
     """Single-file variant (``utilities.py:155-214``) head-to-head."""
-    import sed_tpu.post.events as events
-    from sed_tpu.config import LABELS
+    import sed_jax.post.events as events
+    from sed_jax.config import LABELS
 
     rng = np.random.RandomState(101)
     c = len(LABELS)
@@ -368,8 +368,8 @@ def test_frame_binary_prediction_to_event_prediction_head_to_head(
     """Voting-pipeline decode (``utilities.py:216-276``) head-to-head on
     randomized vote-count grids across the reference's
     param_combinations grid."""
-    import sed_tpu.post.events as events
-    from sed_tpu.config import LABELS
+    import sed_jax.post.events as events
+    from sed_jax.config import LABELS
 
     rng = np.random.RandomState(102)
     c = len(LABELS)
@@ -407,7 +407,7 @@ def test_merge_avg_merge_head_to_head(ref_utilities):
     (``utilities.py:405-446``) vs both our incremental port and the
     one-shot ``overlap_add_windows`` — bit-exact, across the window
     grid."""
-    import sed_tpu.post.merge as post_merge
+    import sed_jax.post.merge as post_merge
 
     rng = np.random.RandomState(103)
     for i in range(60):

@@ -13,7 +13,7 @@ full inference chains:
 
   reference: torch forward -> utils/utilities.py
              frame_prediction_to_event_prediction (the ACTUAL code)
-  rebuild:   compat .pth load -> flax forward -> sed_tpu.post.events
+  rebuild:   compat .pth load -> flax forward -> sed_jax.post.events
 
 Event lists must be EXACTLY equal (measured forward deltas on trained
 weights: clipwise <=1.2e-7, framewise <=1.1e-6 — far inside threshold
@@ -37,11 +37,11 @@ torch = pytest.importorskip('torch')
 
 import jax.numpy as jnp  # noqa: E402
 
-from sed_tpu.config import AUDIO_16K, LABELS  # noqa: E402
-from sed_tpu.compat.torch_loader import load_checkpoint_variables  # noqa: E402
-from sed_tpu.models.registry import get_model  # noqa: E402
-from sed_tpu.eval.segment_metrics import SegmentBasedMetrics  # noqa: E402
-import sed_tpu.post.events as events  # noqa: E402
+from sed_jax.config import AUDIO_16K, LABELS  # noqa: E402
+from sed_jax.compat.torch_loader import load_checkpoint_variables  # noqa: E402
+from sed_jax.models.registry import get_model  # noqa: E402
+from sed_jax.eval.segment_metrics import SegmentBasedMetrics  # noqa: E402
+import sed_jax.post.events as events  # noqa: E402
 
 from test_reference_model_oracle import _functional_librosa_stub  # noqa: E402
 

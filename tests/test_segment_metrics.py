@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from sed_tpu.eval.segment_metrics import (SegmentBasedMetrics,
+from sed_jax.eval.segment_metrics import (SegmentBasedMetrics,
                                           official_evaluate)
 
 LABELS = ('A', 'B', 'C')

@@ -4,7 +4,7 @@
 ``utils/utilities.py:294-340``) is not installable in this environment, so
 the strongest available oracle is a from-first-principles brute-force
 reimplementation that shares NO formulation with
-``sed_tpu/eval/segment_metrics.py``:
+``sed_jax/eval/segment_metrics.py``:
 
   * activity is decided by open-interval overlap (``seg < offset and
     seg+1 > onset``) instead of floor/ceil roll indexing — provably
@@ -25,7 +25,7 @@ import os
 import numpy as np
 import pytest
 
-from sed_tpu.eval.segment_metrics import (SegmentBasedMetrics,
+from sed_jax.eval.segment_metrics import (SegmentBasedMetrics,
                                           official_evaluate)
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
@@ -189,7 +189,7 @@ def test_official_evaluate_csv_path_matches_brute_force(tmp_path):
     """End-to-end through the CSV loaders and per-file grouping,
     including estimated events for files absent from the reference
     (ignored, as in ``utils/utilities.py:311-336``)."""
-    from sed_tpu import config as cfg
+    from sed_jax import config as cfg
     rng = np.random.RandomState(7)
     labels = list(cfg.LABELS)
     files = [f'clip{i}.wav' for i in range(6)]

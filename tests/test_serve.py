@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from sed_tpu.config import AUDIO_16K, PREDICT_SED_PARAMS
-from sed_tpu.data import audio_io
-from sed_tpu.models.registry import get_model
-from sed_tpu.serve.engine import SedInferenceEngine, window_starts
+from sed_jax.config import AUDIO_16K, PREDICT_SED_PARAMS
+from sed_jax.data import audio_io
+from sed_jax.models.registry import get_model
+from sed_jax.serve.engine import SedInferenceEngine, window_starts
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow
@@ -73,7 +73,7 @@ def test_mesh_parallel_serving_matches_single(engine):
     """Data-parallel serving over the 8-device virtual mesh produces the
     same events as the single-device engine."""
     import jax
-    from sed_tpu.parallel import mesh as mesh_lib
+    from sed_jax.parallel import mesh as mesh_lib
     assert jax.device_count() >= 8
     mesh = mesh_lib.make_mesh(8)
     mesh_engine = SedInferenceEngine(
@@ -96,7 +96,7 @@ def test_mesh_resident_serving_matches_single(engine):
     verdict #5 — the flagship serving path must not be structurally
     single-device)."""
     import jax
-    from sed_tpu.parallel import mesh as mesh_lib
+    from sed_jax.parallel import mesh as mesh_lib
     assert jax.device_count() >= 8
     mesh = mesh_lib.make_mesh(8)
     mesh_engine = SedInferenceEngine(
@@ -192,7 +192,7 @@ def test_stream_launch_group_matches_bulk():
     and XML must match the ungrouped path, including a partial final
     chunk and a remainder group."""
     import jax
-    from sed_tpu.models.registry import get_model
+    from sed_jax.models.registry import get_model
     cfg = AUDIO_16K
     model = get_model('Cnn_9layers_Gru_FrameAtt', cfg)
     wav0 = np.zeros((1, cfg.sample_rate * 5), np.float32)
@@ -225,7 +225,7 @@ def test_stream_pull_format_full_matches_tracks():
     track, one fixed-shape pull) must produce identical events/XML to
     the gather-based path, grouped and ungrouped."""
     import jax
-    from sed_tpu.models.registry import get_model
+    from sed_jax.models.registry import get_model
     cfg = AUDIO_16K
     model = get_model('Cnn_9layers_Gru_FrameAtt', cfg)
     wav0 = np.zeros((1, cfg.sample_rate * 5), np.float32)
@@ -264,10 +264,9 @@ def test_stream_pull_format_full_matches_tracks():
 
 
 def test_engine_defaults_are_measured_fastest():
-    """Production defaults must match the proven-fastest serving config
-    (BENCHMARKS.md): pull_format='topk' (1.44x 'full' at resident scale,
-    ties elsewhere; exact via saturation fallback), launch_group=2 — a
-    user who never reads the benchmarks gets the fast path."""
+    """Production defaults: pull_format='topk' (the fewest pulled
+    bytes; exact via saturation fallback) and launch_group=2 — what a
+    user who sets nothing gets."""
     import jax
     cfg = AUDIO_16K
     model = get_model('Cnn_9layers_Gru_FrameAtt', cfg)
@@ -288,7 +287,7 @@ def test_engine_defaults_are_measured_fastest():
                            gather_format='float', pull_format='full')
     # the predict CLI builds its engine with the same defaults
     import inspect
-    from sed_tpu.cli import predict as predict_cli
+    from sed_jax.cli import predict as predict_cli
     src = inspect.getsource(predict_cli._build_engine)
     assert "'launch_group', 2" in src and "'pull_format', None" in src
 
@@ -641,8 +640,8 @@ def test_mulaw_wire_framewise_and_events_match_int16(engine):
     events must match nearly one-for-one."""
     import sys as _sys, os as _os
     _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__)))))
-    from bench import make_test_clips
+        _os.path.abspath(__file__))), 'tools'))
+    from bench_corpus import make_clips as make_test_clips
     clips = make_test_clips(8, AUDIO_16K.sample_rate, seconds=5, seed=3)
     pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
     codes = audio_io.mulaw_encode(pcm)
@@ -678,7 +677,7 @@ def test_q4_codec_properties():
     """Block-scaled 4-bit codec: bounded relative error per block, exact
     zeros, host/device decode agreement (incl. f16 bitcast endianness)."""
     import jax.numpy as jnp
-    from sed_tpu.serve.engine import SedInferenceEngine  # noqa: F401
+    from sed_jax.serve.engine import SedInferenceEngine  # noqa: F401
     rng = np.random.RandomState(0)
     x = rng.uniform(-0.8, 0.8, (3, 2048)).astype(np.float32)
     x[0, :256] = 0.0
@@ -743,8 +742,7 @@ def test_qn_codec_properties():
 
 def test_qn_device_decode_matches_host(engine):
     """On-device q5/q6 decode equals the numpy reference; q6 framewise
-    outputs track int16 at least as closely as mu-law does (q6 is the
-    default bench wire on that basis — BENCHMARKS.md)."""
+    outputs track int16 at least as closely as mu-law does."""
     import jax.numpy as jnp
     s = engine.window_samples
     rng = np.random.RandomState(23)
@@ -756,9 +754,9 @@ def test_qn_device_decode_matches_host(engine):
                                    rtol=1e-6, atol=1e-7)
 
     import sys as _sys, os as _os
-    _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__))))
-    from bench import make_test_clips
+    _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), 'tools'))
+    from bench_corpus import make_clips as make_test_clips
     clips = make_test_clips(6, AUDIO_16K.sample_rate, seconds=5, seed=9)
     pcm = (np.clip(clips, -1, 1) * 32767).astype(np.int16)
     f16, _ = engine.infer_framewise(pcm)
@@ -782,9 +780,9 @@ def test_q4_device_decode_matches_host(engine):
                                rtol=1e-6, atol=1e-7)
 
     import sys as _sys, os as _os
-    _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__))))
-    from bench import make_test_clips
+    _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), 'tools'))
+    from bench_corpus import make_clips as make_test_clips
     clips = make_test_clips(6, AUDIO_16K.sample_rate, seconds=5, seed=9)
     f32, _ = engine.infer_framewise(clips)
     fq4, _ = engine.infer_framewise(audio_io.q4_encode(clips))
@@ -796,16 +794,13 @@ def test_q4_device_decode_matches_host(engine):
 def test_bf16_serving_events_match_f32():
     """bf16 conv-stack serving must decode (near-)identical events to
     f32 on the bench distribution with the TRAINED bench checkpoint —
-    the precondition for ever flipping BENCH_BF16/engine dtype after the
-    round-3 device-time correction (BENCHMARKS.md: the 'bf16 buys
-    nothing' conclusion came from artifact timings; at fast link phases
-    compute is first-order, so bf16 may win e2e)."""
+    the precondition for ever serving in bf16."""
     import jax.numpy as jnp
     import sys as _sys, os as _os
-    _sys.path.insert(0, _os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__))))
-    from bench import make_test_clips
-    from sed_tpu.utils.npz_ckpt import load_variables_npz
+    _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), 'tools'))
+    from bench_corpus import make_clips as make_test_clips
+    from sed_jax.utils.npz_ckpt import load_variables_npz
 
     ckpt = _os.path.join(_os.path.dirname(_os.path.dirname(
         _os.path.abspath(__file__))), 'tools', 'bench_checkpoint.npz')
@@ -853,9 +848,8 @@ def test_bf16_serving_events_match_f32():
 
 
 def test_measure_forward_ms_returns_sane_reading(engine):
-    """The bf16 degradation guard's chained-forward timing must return
-    a finite positive ms/iter on any backend (it is pure timing, not a
-    threshold decision — the threshold lives in bench.py)."""
+    """The chained-forward timing must return a finite positive ms/iter
+    on any backend."""
     ms = engine.measure_forward_ms(iters=3)
     assert np.isfinite(ms) and ms >= 0.0
     # sanity: a batch-8 forward cannot take a minute per iteration
@@ -864,12 +858,12 @@ def test_measure_forward_ms_returns_sane_reading(engine):
 
 def test_upload_deadline_aborts_collapsed_pass_engine_stays_usable(
         engine, tmp_path):
-    """Injected-slowdown test (VERDICT round-3 #5): when an upload
+    """Injected-slowdown test: when an upload
     thread stalls past ``upload_deadline_s``, predict_files_resident
     must raise LinkCollapseError promptly, and the engine must serve
     the SAME files correctly on the retry."""
     import time as _time
-    from sed_tpu.serve.engine import LinkCollapseError
+    from sed_jax.serve.engine import LinkCollapseError
 
     rng = np.random.RandomState(0)
     sr = AUDIO_16K.sample_rate
@@ -890,7 +884,7 @@ def test_upload_deadline_aborts_collapsed_pass_engine_stays_usable(
 
     def slow_put(x, *a, **kw):
         if stall['on'] and getattr(x, 'nbytes', 0) > 1000:
-            _time.sleep(3.0)        # a dead link phase
+            _time.sleep(3.0)        # a stalled upload
         return real_put(x, *a, **kw)
 
     t0 = _time.time()
@@ -913,11 +907,11 @@ def test_upload_deadline_aborts_collapsed_pass_engine_stays_usable(
 
 
 def test_materialize_with_deadline_aborts_stalled_pull():
-    """device_put can return before bytes cross this link, so a
-    mid-pass collapse surfaces in the blocking result pull — the
-    deadline must bound that too."""
+    """device_put can return before the bytes are on the device, so a
+    stall surfaces in the blocking result pull — the deadline must
+    bound that too."""
     import time as _time
-    from sed_tpu.serve.engine import (LinkCollapseError,
+    from sed_jax.serve.engine import (LinkCollapseError,
                                       SedInferenceEngine)
 
     class _Stalled:

@@ -15,15 +15,15 @@ import pytest
 
 import jax
 
-from sed_tpu.config import AUDIO_16K
-from sed_tpu.models.registry import get_model
-from sed_tpu.serve.engine import SedInferenceEngine
-from sed_tpu.serve.streaming import StreamingSed
-from sed_tpu.utils.npz_ckpt import load_variables_npz
+from sed_jax.config import AUDIO_16K
+from sed_jax.models.registry import get_model
+from sed_jax.serve.engine import SedInferenceEngine
+from sed_jax.serve.streaming import StreamingSed
+from sed_jax.utils.npz_ckpt import load_variables_npz
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-from bench import make_test_clips  # noqa: E402
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'tools'))
+from bench_corpus import make_clips as make_test_clips  # noqa: E402
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow

@@ -1,12 +1,12 @@
 """Unit tests for the threshold-optimizer score calculators
-(``sed_tpu/thresholds/optimizer.py``, reference
+(``sed_jax/thresholds/optimizer.py``, reference
 ``pytorch/optimize_thresholds.py:143-207``)."""
 
 import pickle
 
 import numpy as np
 
-from sed_tpu.thresholds.optimizer import AudioTaggingScoreCalculator
+from sed_jax.thresholds.optimizer import AudioTaggingScoreCalculator
 
 
 def test_audio_tagging_score_calculator(tmp_path):

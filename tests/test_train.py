@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sed_tpu import losses
-from sed_tpu.config import AUDIO_16K, CLASSES_NUM
-from sed_tpu.models.registry import get_model
-from sed_tpu.parallel import mesh as mesh_lib
-from sed_tpu.train.state import create_train_state
-from sed_tpu.train.step import make_train_step, make_eval_step
+from sed_jax import losses
+from sed_jax.config import AUDIO_16K, CLASSES_NUM
+from sed_jax.models.registry import get_model
+from sed_jax.parallel import mesh as mesh_lib
+from sed_jax.train.state import create_train_state
+from sed_jax.train.step import make_train_step, make_eval_step
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
 pytestmark = pytest.mark.slow
@@ -171,7 +171,7 @@ def test_eval_step_matches_direct_apply():
 def test_device_prefetch_order_and_errors():
     """device_prefetch must yield items in order (as device arrays) and
     re-raise producer exceptions at the consuming next()."""
-    from sed_tpu.train.prefetch import device_prefetch
+    from sed_jax.train.prefetch import device_prefetch
 
     items = [{'a': np.full((4,), i, np.float32)} for i in range(10)]
     out = list(device_prefetch(iter(items), size=2))
@@ -196,7 +196,7 @@ def test_device_prefetch_stops_when_abandoned():
     thread instead of letting it draw from the source pipeline for the
     rest of the process (train loops break at stop_iteration)."""
     import time
-    from sed_tpu.train.prefetch import device_prefetch
+    from sed_jax.train.prefetch import device_prefetch
 
     drawn = [0]
 

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sed_tpu import losses
-from sed_tpu.config import AUDIO_16K, CLASSES_NUM, LABELS
-from sed_tpu.models.registry import get_model
-from sed_tpu.train.state import create_train_state
-from sed_tpu.train.step import make_train_step
+from sed_jax import losses
+from sed_jax.config import AUDIO_16K, CLASSES_NUM, LABELS
+from sed_jax.models.registry import get_model
+from sed_jax.train.state import create_train_state
+from sed_jax.train.step import make_train_step
 import pytest
 
 # jit-heavy tier: excluded from the fast CI run (pytest -m "not slow")
@@ -44,9 +44,9 @@ def test_conformer_train_step():
 
 
 def test_weak_only_cli_driver(tmp_path):
-    from sed_tpu.cli import features as features_cli
-    from sed_tpu.cli import main as main_cli
-    from sed_tpu.data import audio_io
+    from sed_jax.cli import features as features_cli
+    from sed_jax.cli import main as main_cli
+    from sed_jax.data import audio_io
 
     cfg = AUDIO_16K
     rng = np.random.RandomState(1)
@@ -110,7 +110,7 @@ def test_loss_scaled_step_matches_unscaled_in_f32():
     """Power-of-two loss scaling is exact per-multiplication; the two
     programs still compile to different HLO fusions, so params match to
     float32 reassociation noise (~1e-7), not bitwise."""
-    from sed_tpu.train.step import init_loss_scale
+    from sed_jax.train.step import init_loss_scale
 
     rng = np.random.RandomState(3)
     model = get_model('Cnn_9layers_FrameAvg', AUDIO_16K)
@@ -150,7 +150,7 @@ def test_loss_scale_skips_nonfinite_step_and_backs_off():
     """A batch that produces nonfinite gradients must leave params,
     opt_state, step count AND batch_stats untouched, halve the scale,
     and reset the growth counter; training then continues finitely."""
-    from sed_tpu.train.step import init_loss_scale
+    from sed_jax.train.step import init_loss_scale
 
     rng = np.random.RandomState(5)
     model = get_model('Cnn_9layers_FrameAvg', AUDIO_16K)
@@ -192,7 +192,7 @@ def test_loss_scale_skips_nonfinite_step_and_backs_off():
 
 
 def test_loss_scale_grows_after_interval():
-    from sed_tpu.train.step import (LossScaleState, _GROWTH_INTERVAL,
+    from sed_jax.train.step import (LossScaleState, _GROWTH_INTERVAL,
                                     init_loss_scale, make_train_step)
 
     rng = np.random.RandomState(6)
@@ -215,9 +215,8 @@ def test_loss_scale_grows_after_interval():
 def test_bf16_transformer_trains_finite_with_dynamic_scale():
     """The round-2 failure case: Cnn_9layers_Transformer_FrameAtt in
     bf16.  With dynamic loss scaling + nonfinite-step skip the params
-    must stay finite (the 500-step on-chip run is logged in
-    BENCHMARKS.md; this is the fast CPU regression)."""
-    from sed_tpu.train.step import init_loss_scale
+    must stay finite (this is the fast CPU regression)."""
+    from sed_jax.train.step import init_loss_scale
 
     rng = np.random.RandomState(9)
     model = get_model('Cnn_9layers_Transformer_FrameAtt', AUDIO_16K,

@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sed_tpu.config import AUDIO_16K
-from sed_tpu.dsp import transforms as tr
-from sed_tpu.dsp.frontend import stft
-from sed_tpu.dsp.filters import stft_matrices
+from sed_jax.config import AUDIO_16K
+from sed_jax.dsp import transforms as tr
+from sed_jax.dsp.frontend import stft
+from sed_jax.dsp.filters import stft_matrices
 
 
 def test_dft_matches_numpy_fft():

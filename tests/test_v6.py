@@ -18,8 +18,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sed_tpu.data import audio_io
-from sed_tpu.ops import wire
+from sed_jax.data import audio_io
+from sed_jax.ops import wire
 
 sys.path.insert(0, os.path.join(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))), 'tools'))
@@ -89,9 +89,9 @@ def test_v6_ragged_resident_matches_q6(tmp_path):
     produce the exact events/XML of the fixed-width q6 resident path —
     v6 decode is bit-identical to q6's, so any divergence is plumbing."""
     import jax
-    from sed_tpu.config import AUDIO_16K, PREDICT_SED_PARAMS
-    from sed_tpu.models.registry import get_model
-    from sed_tpu.serve.engine import SedInferenceEngine
+    from sed_jax.config import AUDIO_16K, PREDICT_SED_PARAMS
+    from sed_jax.models.registry import get_model
+    from sed_jax.serve.engine import SedInferenceEngine
 
     cfg = AUDIO_16K
     sr = cfg.sample_rate

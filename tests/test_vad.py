@@ -1,7 +1,7 @@
 """Event-decoder parity tests.
 
 ``reference_activity_detection`` below is an independent straight-line
-simulation of the decoding rules documented in sed_tpu.post.vad (derived
+simulation of the decoding rules documented in sed_jax.post.vad (derived
 from the behavior of ``utils/vad.py``); the package's run-length
 implementation must match it on randomized tracks.
 """
@@ -9,11 +9,11 @@ implementation must match it on randomized tracks.
 import numpy as np
 import pytest
 
-from sed_tpu.post import vad
-from sed_tpu.post.merge import merge as merge_step, avg_merge, \
+from sed_jax.post import vad
+from sed_jax.post.merge import merge as merge_step, avg_merge, \
     overlap_add_windows
-from sed_tpu.post.events import decode_batch, write_submission
-from sed_tpu.config import SedParams
+from sed_jax.post.events import decode_batch, write_submission
+from sed_jax.config import SedParams
 
 
 # --- independent simulation of the reference decoding rules ---------------
@@ -152,7 +152,7 @@ def test_events_to_xml_escapes_attributes():
     """ASR transcripts / file names with XML metacharacters must yield
     well-formed XML (the reference concatenates raw strings)."""
     import xml.etree.ElementTree as ET
-    from sed_tpu.post.xml_writer import events_to_xml
+    from sed_jax.post.xml_writer import events_to_xml
     events = [{'onset': 0.5, 'offset': 1.5, 'event_label': 'Speech',
                'text': 'he said "stop" & <ran>'}]
     xml = events_to_xml(events, 'a&b<c>.wav')

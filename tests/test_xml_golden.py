@@ -17,7 +17,7 @@ import xml.etree.ElementTree as ET
 
 import pytest
 
-from sed_tpu.post import xml_writer
+from sed_jax.post import xml_writer
 
 GOLDEN = '/root/reference/predict_results/IGFZfTxCc5I.xml'
 

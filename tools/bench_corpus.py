@@ -1,19 +1,16 @@
-"""Hardened synthetic SED corpus shared by the bench, the bench
+"""Hardened synthetic SED corpus shared by the GPU smoke run, the bench
 checkpoint trainer, and the wire-admission measurements.
 
-Round-4 verdict weakness #5: every wire-fidelity conclusion rested on
-16 clips of constant-level tone bursts over constant full-band white
-noise — adversarial for differential codecs, easy for block-scaled
-quantizers, and unlike any real acoustic scene.  This corpus keeps the
-separable class structure the bench checkpoint needs (each class a
-distinct spectral signature, so a small Cnn_9layers_Gru_FrameAtt
-genuinely learns it) while adding the content diversity the verdict
-asked for:
+Constant-level tone bursts over constant full-band white noise would be
+adversarial for differential codecs, easy for block-scaled quantizers,
+and unlike any real acoustic scene.  This corpus keeps the separable
+class structure the bench checkpoint needs (each class a distinct
+spectral signature, so a small Cnn_9layers_Gru_FrameAtt genuinely
+learns it) while adding content diversity:
 
 * SIX event classes (LABELS[0..5]): two steady tone bands, an
   AM-modulated tone, a linear chirp, a band-limited noise burst, and a
-  near-Nyquist high tone (the stress case for differential wires —
-  reference fidelity ladder, BENCHMARKS.md).
+  near-Nyquist high tone (the stress case for differential wires).
 * 1-3 events per clip, FREELY OVERLAPPING across classes, with level
   diversity (0.1-0.5) and 20 ms attack/release ramps.
 * Background diversity: low-passed noise (varied cutoff), pink-ish
@@ -31,7 +28,7 @@ Determinism: everything derives from the caller's seed; no global RNG.
 
 import numpy as np
 
-from sed_tpu.config import LABELS
+from sed_jax.config import LABELS
 
 N_CLASSES = 6
 
@@ -138,9 +135,7 @@ def make_clips(n: int, sr: int, seconds: int = 5, seed: int = 0,
     when ``return_events`` — a per-clip list of ground-truth
     ``{'event_label', 'onset', 'offset'}`` dicts.
 
-    Built in ~256-clip chunks: one giant allocation measured
-    pathologically slow on this host (BENCHMARKS.md host-memory note),
-    while chunk-sized working sets stay cache-friendly.
+    Built in ~256-clip chunks so the working set stays cache-sized.
     """
     rng = np.random.RandomState(seed)
     gen = np.random.default_rng(seed)

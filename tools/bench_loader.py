@@ -1,11 +1,10 @@
 """Loader microbenchmark: per-item h5py reads vs one hyperslab
-fancy-read per batch (sed_tpu/data/dataset.py get_batch), plus the
-threaded DataLoader end-to-end. Run on an idle host; results recorded
-in BENCHMARKS.md."""
+fancy-read per batch (sed_jax/data/dataset.py get_batch), plus the
+threaded DataLoader end-to-end. Run on an idle host."""
 import os, sys, time, tempfile
 import numpy as np, h5py
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from sed_tpu.data.dataset import AudiosetDataset, DataLoader, TrainSampler, collate_fn
+from sed_jax.data.dataset import AudiosetDataset, DataLoader, TrainSampler, collate_fn
 
 d = tempfile.mkdtemp()
 path = os.path.join(d, 'weak_training_logmel_16k.h5')

@@ -1,8 +1,7 @@
 """Train the synthetic-learning-check model and export a repo-committable
-checkpoint for bench.py.
+checkpoint (the serving checks in chip_smoke.py and the tests use it).
 
-The bench previously ran a random-init model with a bias hack to fake
-production event density; this produces a REAL trained
+This produces a REAL trained
 Cnn_9layers_Gru_FrameAtt on the hardened 6-class corpus (tones, AM,
 chirp, noise burst, near-Nyquist tone over diverse backgrounds — see
 ``tools/bench_corpus.py``) so the benched event distribution comes
@@ -20,9 +19,9 @@ import tempfile
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from sed_tpu.utils.npz_ckpt import save_variables_npz  # noqa: E402
-from sed_tpu.cli import features as features_cli  # noqa: E402
-from sed_tpu.cli import main_strong as main_strong_cli  # noqa: E402
+from sed_jax.utils.npz_ckpt import save_variables_npz  # noqa: E402
+from sed_jax.cli import features as features_cli  # noqa: E402
+from sed_jax.cli import main_strong as main_strong_cli  # noqa: E402
 from synthetic_learning_check import build_dataset  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -54,9 +53,9 @@ def main():
         '--learning_rate', '1e-3', '--stop_iteration', stop,
         '--eval_interval', '200'])
 
-    from sed_tpu.train.checkpoint import best_checkpoint_path, \
+    from sed_jax.train.checkpoint import best_checkpoint_path, \
         load_variables
-    from sed_tpu.utils.paths import Workspace
+    from sed_jax.utils.paths import Workspace
     ckpt_root = Workspace(
         ws, augmentation='specaugment_mixup',
         batch_size=4).checkpoint_path('logmel', '16k')

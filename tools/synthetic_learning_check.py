@@ -18,10 +18,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import numpy as np
 
-from sed_tpu.config import AUDIO_16K
-from sed_tpu.data import audio_io
-from sed_tpu.cli import features as features_cli
-from sed_tpu.cli import main_strong as main_strong_cli
+from sed_jax.config import AUDIO_16K
+from sed_jax.data import audio_io
+from sed_jax.cli import features as features_cli
+from sed_jax.cli import main_strong as main_strong_cli
 from bench_corpus import (BANDS, N_CLASSES, make_clips)  # noqa: F401
 
 CFG = AUDIO_16K
